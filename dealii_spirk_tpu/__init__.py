@@ -1,6 +1,6 @@
-"""dealii_spirk_tpu — a TPU-native stage-parallel implicit Runge-Kutta framework.
+"""dealii_spirk_tpu — a JAX stage-parallel implicit Runge-Kutta framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 peterrum/dealii-spirk (stage-parallel fully implicit Runge-Kutta solvers
 for the time-dependent heat equation with optimal multigrid
 preconditioners; see arXiv:2209.06700).
@@ -16,24 +16,25 @@ Reference parity map (file:line citations point into the reference tree):
 * Butcher / diagonalization tables — reference ``tables/irk_ev.m``
 
 Unlike the reference (deal.II + MPI on CPU clusters), everything here is
-built TPU-first: the uniformly refined hypercube mesh is represented as a
-tensor-product grid so every FEM operator is a chain of separable 1D
-banded applications (XLA-fusable, Pallas-acceleratable), stages are a
-batch/mesh axis instead of MPI rank groups, and distribution happens via
+built for an accelerator: the uniformly refined hypercube mesh is
+represented as a tensor-product grid so every FEM operator is a chain of
+separable 1D banded applications that XLA fuses, stages are a batch/mesh
+axis instead of MPI rank groups, and distribution happens via
 ``jax.sharding.Mesh`` + collectives instead of MPI.
 """
 
 import jax
 
 # float64 is required for solver-tolerance parity with the reference
-# (OuterTolerance down to 1e-12, see reference scripts/default.json). TPU
-# benchmarks can still request float32/bfloat16 via the Precision config.
+# (OuterTolerance down to 1e-12, see reference scripts/default.json).
+# Benchmarks can still request float32 via the Precision config.
 jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls default to bf16 passes; for a PDE solver chasing 1e-4..1e-12
-# residual reductions every contraction (stage mixing, grid transfer,
-# coarse solve) must run at full f32 — bf16 operator error stalls Krylov
-# convergence (measured: GMRES hits maxiter instead of converging).
+# On GPUs with tensor cores, f32 matmuls default to TF32 (about three
+# decimal digits); for a PDE solver chasing 1e-4..1e-12 residual
+# reductions every contraction (stage mixing, grid transfer, coarse solve)
+# must run at full f32 — reduced-precision operator error stalls Krylov
+# convergence (GMRES hits maxiter instead of converging).
 jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

@@ -23,7 +23,8 @@ def main(argv=None) -> int:
         metavar="DIR",
         default=None,
         help="capture an XLA/Xprof trace of the run into DIR (the "
-        "TPU-native analog of the reference's phase timers, SURVEY.md §5)",
+        "device-trace analog of the reference's phase timers, "
+        "SURVEY.md §5)",
     )
     parser.add_argument(
         "--phase-timers",
@@ -40,6 +41,10 @@ def main(argv=None) -> int:
     import contextlib
 
     import jax
+
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     profile_cm = (
         jax.profiler.trace(args.profile)

@@ -2,8 +2,9 @@
 
 The key names, defaults and validation mirror ``HeatEquation::Parameters``
 (reference ``main.cc:2943-3010``) so the reference's ``json/`` configs run
-unmodified.  A few TPU-specific extras are accepted on top (``Precision``,
-``Dim``) — unknown keys raise, like deal.II's ParameterHandler.
+unmodified.  A few extensions are accepted on top (``Precision``,
+``Dim``, ``OperatorMode``) — unknown keys raise, like deal.II's
+ParameterHandler.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ _KEY_MAP = {
     "Padding": ("padding", int),
     "MaxRanks": ("max_ranks", int),
     "DoOutputParaview": ("do_output_paraview", bool),
-    # TPU-native extensions (not present in the reference)
+    # extensions (not present in the reference)
     "Precision": ("precision", str),
     "Dim": ("dim", int),
     "OperatorMode": ("operator_mode_override", str),
@@ -65,7 +66,7 @@ class Parameters:
     outer_tolerance: float = 1e-8
     inner_tolerance: float = 1e-6
     do_output_paraview: bool = True
-    # TPU-native extensions
+    # extensions
     precision: str = "f64"
     dim: int = 3
     operator_mode_override: str = ""
@@ -109,35 +110,25 @@ class Parameters:
             )
         if self.precision not in ("f32", "f64"):
             raise ValueError(f"unknown Precision {self.precision!r}")
-        if self.operator_mode_override not in ("", "stencil", "dense", "pallas"):
+        if self.operator_mode_override not in ("", "stencil", "dense"):
             raise ValueError(
-                f"unknown OperatorMode {self.operator_mode_override!r}"
+                f"unknown OperatorMode {self.operator_mode_override!r}; "
+                "expected 'stencil' or 'dense' (the fused Pallas kernels "
+                "were removed: MatrixFree runs the XLA stencil path)"
             )
         if self.dim not in (2, 3):
             raise ValueError("Dim must be 2 or 3")
 
     @property
     def operator_mode(self) -> str:
-        """Map the reference's OperatorType onto the TPU execution modes:
-        MatrixBased -> dense 1D contractions on the MXU; MatrixFree ->
-        the fused Pallas stencil kernels whenever they apply (degrees
-        1-4, f32, TPU backend — ``fused_stencil_supported``), banded
-        roll sweeps otherwise.  The reference's degree sweep is a
-        first-class paper axis (``scripts/parameters_p.py:22-31``), so
-        every supported degree must dispatch the fast path by default."""
+        """Map the reference's OperatorType onto the execution modes:
+        MatrixBased -> dense 1D matmul contractions; MatrixFree -> banded
+        roll sweeps (``ops/banded.py``), the same path on every backend
+        and degree."""
         if self.operator_mode_override:
             return self.operator_mode_override
         if self.operator_type == "MatrixBased":
             return "dense"
-        import jax
-
-        if self.precision == "f32" and jax.default_backend() == "tpu":
-            import jax.numpy as jnp
-
-            from .ops.pallas.stencil import fused_stencil_supported
-
-            if fused_stencil_supported(self.fe_degree, self.dim, jnp.float32):
-                return "pallas"
         return "stencil"
 
     @property

@@ -4,7 +4,7 @@ The reference builds on deal.II's unstructured-mesh machinery
 (``parallel::distributed::Triangulation`` + ``DoFHandler`` + ``MatrixFree``,
 reference ``main.cc:3020-3041``).  Because the problem domain is always a
 globally refined hypercube (reference ``main.cc:3038-3039`` — no adaptivity,
-no hanging nodes), the TPU-native representation is a *tensor-product grid*:
+no hanging nodes), the representation here is a *tensor-product grid*:
 the global Q_p basis is an outer product of 1D bases, so every operator
 (mass, stiffness, prolongation, quadrature evaluation) factorizes into
 separable 1D banded applications.  That turns the FEM hot loop into

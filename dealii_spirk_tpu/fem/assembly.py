@@ -9,7 +9,7 @@ and its Trilinos assembled path, reference ``operator.h:104-246``).
 Matrices are stored *banded*: ``band[p + k, i] = Op[i, i + k]`` for offsets
 ``k in [-p, p]`` (half-bandwidth = element degree on the interior-node
 grid), with out-of-range entries zero.  This is exactly the layout the
-roll-and-scale TPU stencil apply consumes (see ``ops/banded.py``).
+roll-and-scale stencil apply consumes (see ``ops/banded.py``).
 """
 
 from __future__ import annotations

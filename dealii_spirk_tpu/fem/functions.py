@@ -10,8 +10,8 @@ numbers are ``a_x = a_y = a_z = 2``):
                 + dim a^2 pi^2 (1 + sin(pi c_t t))] * exp(-a_t t)
 
 with ``a_t = 0.5``, ``c_t = 1``, solving u_t = laplace(u) + f with
-homogeneous Dirichlet BCs.  The space/time separability is exact, which the
-TPU build exploits: the spatial load vector is assembled once and the
+homogeneous Dirichlet BCs.  The space/time separability is exact, which this
+build exploits: the spatial load vector is assembled once and the
 per-stage RHS evaluation becomes a scalar multiply (instead of the
 reference's per-call cell-loop assembly at ``main.cc:3213-3219``).
 """

@@ -1,6 +1,6 @@
 """Operator layer: separable tensor-product applications of a*M + b*K.
 
-This is the TPU-native replacement of the reference's L3 operator layer
+This is the replacement of the reference's L3 operator layer
 (``include/operator.h``): instead of a sum-factorization cell loop over an
 unstructured mesh, the uniform tensor-product grid lets every operator act
 as a chain of 1D banded (stencil) or dense (einsum) applications along each

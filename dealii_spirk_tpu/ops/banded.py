@@ -39,10 +39,8 @@ def apply_dense_1d(mat, u, axis: int):
     """Apply a dense 1D operator ``mat`` (n_out, n_in) along ``axis``.
 
     Contracts the axis in place with ``dot_general`` rather than
-    moveaxis + matmul: at refinement-8 V-cycle transfer shapes the
-    direct contraction measured 2.48 vs 3.27 ms per restrict+prolong
-    round trip (`scripts/transfer_r8.py`) — XLA materializes the
-    moveaxis as a layout copy on the 256 MB fields."""
+    moveaxis + matmul, which XLA can materialize as a layout copy of the
+    whole field before the matmul."""
     axis = axis % u.ndim
     out = lax.dot_general(
         mat, u, (((1,), (axis,)), ((), ())), precision="highest"

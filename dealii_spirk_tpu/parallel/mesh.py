@@ -13,9 +13,9 @@ analog of the reference's virtual-topology placement (``lex_to_pair``,
 ``main.cc:281-293``): row-major puts consecutive devices along the stage
 axis.  **Stage-axis adjacency guarantee (tested)**: with row-major
 placement, each stage group occupies CONSECUTIVE entries of the device
-list — on real TPU hardware ``jax.devices()`` enumerates chips in torus
-order, so consecutive ids are ICI neighbors and the hot stage-mixing
-collectives (ring ppermute / all-gather) ride single ICI hops.
+list.  The four GPUs of one host are joined all to all by NVLink, so
+every placement reaches its peers at the same rate; the order matters
+only where devices sit in a hierarchy (several hosts).
 
 ``padding`` is the reference's node-boundary padding (``main.cc:3681-3685``
 + ``create_rectangular_comm`` ``main.cc:365-405``): devices are grouped

@@ -1,6 +1,6 @@
 """Ring-rotation stage mixing over the device mesh.
 
-TPU-native port of ``matrix_vector_rol_operation`` (reference
+Port of ``matrix_vector_rol_operation`` (reference
 ``main.cc:1443-1534``): the dense q x q stage coupling ``out_i = sum_j
 mat[i, j] W_j`` executes as q-1 ``ppermute`` steps around the stage axis
 with rotate-and-accumulate — structurally the ring-attention pattern, and
@@ -10,7 +10,7 @@ Two execution strategies, mirroring the reference's option pair:
 
 * ``UseSharedMemory = false`` -> this ring (per-step neighbor exchange),
 * ``UseSharedMemory = true``  -> plain einsum, which XLA lowers to an
-  all-gather over ICI (the analog of reading peer stage data directly
+  all-gather (the analog of reading peer stage data directly
   from an MPI shared-memory window, reference ``main.cc:1506-1533``).
 
 Both are numerically identical; tests assert so on the CPU mesh.

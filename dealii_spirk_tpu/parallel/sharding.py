@@ -5,7 +5,7 @@ The reference's data distribution (SURVEY.md §2.3) maps as:
 * spatial domain decomposition -> first spatial axis sharded on "space",
 * stage parallelism -> leading stage/pair axis sharded on "stage",
 * stage mixing (T / T^{-1} / A^{-1} ring rotations) -> einsum over the
-  stage axis; XLA lowers it to an all-gather over ICI,
+  stage axis; XLA lowers it to an all-gather,
 * ReshapedVector reductions spanning both axes -> psum over the whole
   mesh, inserted automatically for jnp reductions under SPMD.
 """

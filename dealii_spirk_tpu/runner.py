@@ -9,6 +9,8 @@ row, and accumulate rows across configs.
 
 from __future__ import annotations
 
+from time import perf_counter
+
 import jax
 
 from .config import Parameters
@@ -32,24 +34,14 @@ def run_config(
 
     say = print if verbose else (lambda *a, **k: None)
 
-    if params.precision == "f64" and jax.default_backend() == "tpu":
-        # f64 linear algebra does not lower on TPU; the reference configs
-        # (which predate this port) carry no Precision key, so downgrade
-        # loudly instead of failing at the first coarse-matrix factorize
-        print(
-            "WARNING: Precision f64 is not supported on TPU — running in "
-            "f32. Set Precision explicitly to silence this."
-        )
-        params.precision = "f32"
-
     if params.block_preconditioner_type == "AMG":
         # reference preconditioner.h:176-215 wraps TrilinosWrappers ML
-        # AMG; here AMG = a TPU-native plain-aggregation algebraic
+        # AMG; here AMG = a plain-aggregation algebraic
         # hierarchy (solvers/amg.py) with Chebyshev smoothing — honest
         # AMG semantics, but iteration counts are NOT comparable to
         # Trilinos ML's smoothed-aggregation defaults (PARITY.md)
         print(
-            "NOTE: BlockPreconditionerType 'AMG' runs the TPU-native "
+            "NOTE: BlockPreconditionerType 'AMG' runs the "
             "plain-aggregation algebraic hierarchy (solvers/amg.py), not "
             "Trilinos ML — iteration counts are not ML-comparable; see "
             "PARITY.md."
@@ -117,6 +109,9 @@ def run_config(
         raise ValueError("time step must be smaller than the end time")
 
     errors_history = [error]
+    # host wall time of each solve_step (it blocks until the device is
+    # done); the first includes compilation and preconditioner setup
+    step_seconds = []
     # reference main.cc:3326-3358: truncate the last step to land on T
     while (params.end_time - time) > (1e-4 * dt):
         if time + dt > params.end_time:
@@ -128,7 +123,9 @@ def run_config(
         say(f"\nTime step {timestep_number} at t={time:g}")
         timestep_number += 1
 
+        t0 = perf_counter()
         u = scheme.solve_step(u, timestep_number, time, tau)
+        step_seconds.append(perf_counter() - t0)
 
         error = problem.errors(u, time)
         errors_history.append(error)
@@ -157,6 +154,8 @@ def run_config(
         "error_L2": error[0],
         "error_Linf": error[1],
         "errors": errors_history,
+        "step_seconds": step_seconds,
+        "outer_per_step": list(scheme.outer_per_step),
         "n_outer": scheme.n_outer,
         "n_inner": scheme.n_inner,
         "scheme": scheme,

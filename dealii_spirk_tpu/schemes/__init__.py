@@ -3,7 +3,7 @@
 Scheme selection parity (reference ``main.cc:3221-3293``):
 
 ========================  =====================================================
-name                      TPU-native realization
+name                      realization here
 ========================  =====================================================
 ost                       Crank–Nicolson, CG + GMG (``ost.py``)
 irk / irk_batched         q-stage Radau IIA, outer GMRES, T-diagonalized

@@ -50,6 +50,9 @@ class SchemeBase:
         import numpy as _np
 
         self.n_inner_stage = _np.zeros(getattr(params, "irk_stages", 1))
+        # outer iterations of every step, first included (the totals
+        # above exclude it, like the reference's statistics)
+        self.outer_per_step: list[int] = []
         self._tau_cached: float | None = None
         self._prec = None
 
@@ -72,7 +75,8 @@ class SchemeBase:
         self.n_inner = 0.0
         self.n_inner_stage = self.n_inner_stage * 0
 
-    def after_step(self, timestep_number: int) -> None:
+    def after_step(self, timestep_number: int, n_outer: int) -> None:
+        self.outer_per_step.append(n_outer)
         if timestep_number == 1:
             self.clear_statistics()
 

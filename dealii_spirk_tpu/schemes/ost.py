@@ -70,7 +70,7 @@ class OneStepTheta(SchemeBase):
         if int(n_it) >= 1000:
             raise RuntimeError("CG did not converge within 1000 iterations")
         self.n_outer += int(n_it)
-        self.after_step(timestep_number)
+        self.after_step(timestep_number, int(n_it))
         return u
 
     def get_statistics(self, table, scaling_factor=1.0):

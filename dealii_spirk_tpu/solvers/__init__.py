@@ -1,6 +1,6 @@
 """Krylov solvers, Chebyshev smoothing and geometric multigrid.
 
-TPU-native replacements of the reference's L4 layer
+Replacements of the reference's L4 layer
 (``include/preconditioner.h``, deal.II SolverCG/SolverGMRES): pure-JAX
 iterations under ``lax.while_loop`` with tolerance-based predicates, so a
 whole implicit solve stays inside one compiled program.  Batched (masked)

@@ -1,8 +1,8 @@
 """Algebraic multigrid (plain aggregation) — ``BlockPreconditionerType: "AMG"``.
 
-TPU-native counterpart of the reference's ``PreconditionerAMG``
+Counterpart of the reference's ``PreconditionerAMG``
 (``preconditioner.h:176-215``, a TrilinosWrappers::PreconditionAMG with ML
-defaults).  Trilinos does not exist on TPU, so this is a genuine algebraic
+defaults).  Trilinos is not available to JAX, so this is a genuine algebraic
 hierarchy built from the *matrix entries* instead of the mesh geometry:
 
 * 1D aggregation: pairs of neighboring unknowns form aggregates with a
@@ -13,8 +13,7 @@ hierarchy built from the *matrix entries* instead of the mesh geometry:
   (x) P1`` the coarse operator stays in the same separable family with
   coarse 1D matrices ``M1c = P1^T M1 P1``, ``K1c = P1^T K1 P1`` — so the
   whole existing V-cycle/smoothing machinery (``solvers/gmg.py``) runs
-  unchanged on the algebraic hierarchy, including the fused Pallas
-  kernels;
+  unchanged on the algebraic hierarchy;
 * Chebyshev(5)/point-Jacobi smoothing and the exact dense coarse solve,
   exactly as the GMG configuration (the reference's AMG uses its own ML
   smoothers; smoother parity is not meaningful across libraries and the

@@ -2,12 +2,12 @@
 //
 // The reference implements its entire setup path in C++ (deal.II FE
 // assembly, Octave-generated Butcher tables loaded by main.cc:599-656).
-// This library is the TPU framework's native counterpart: it computes, in
+// This library is the framework's native counterpart: it computes, in
 // long-double precision,
 //
 //   * quadrature rules (Gauss-Legendre, Gauss-Lobatto support points),
 //   * reference-cell and global banded 1D FEM matrices (the data the
-//     JAX/Pallas operators consume; cf. reference operator.h),
+//     JAX operators consume; cf. reference operator.h),
 //   * 1D prolongation matrices for the multigrid transfer,
 //   * Radau IIA Butcher tables and their real LU-diagonalization
 //     (cf. reference tables/irk_ev.m),

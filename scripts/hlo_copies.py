@@ -1,5 +1,5 @@
 """Diagnostic: count backend-inserted full-field copies in the compiled
-solve (the ~16 ms/solve dynamic-update-slice traffic from ROUND1_NOTES).
+solve (GMRES basis writes show up as dynamic-update-slices).
 
 Compiles the bench step and greps the *optimized* HLO for copy/DUS ops on
 large buffers, attributing them to the while loops they live in.  Not part

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Generate run scripts for a sweep directory.
 
-TPU-world counterpart of the reference's SLURM job-file generators
+Counterpart of the reference's SLURM job-file generators
 (``experiments-skx/large-scaling-create-job-files.py`` — which emit
 ``mpirun -np <48*nodes> ../irk-3D input_*.json`` job files): emits one
 shell script per virtual device count, running the whole input sweep on a
-CPU mesh of that size (and ``run_tpu.sh`` for the real accelerator).
+CPU mesh of that size, and ``run_gpu.sh``, which runs it in ONE process
+on the GPUs (a second JAX process on a card would find its memory taken).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ XLA_FLAGS=--xla_force_host_platform_device_count={n} \\
 python -m dealii_spirk_tpu --dim {dim} {inputs}
 """
 
-TEMPLATE_TPU = """#!/bin/sh
-JAX_COMPILATION_CACHE_DIR=${{JAX_COMPILATION_CACHE_DIR:-~/.jax_cache}} \\
+TEMPLATE_GPU = """#!/bin/sh
+# one JAX process for the whole sweep (compile cache: see
+# dealii_spirk_tpu/utils/compile_cache.py)
 python -m dealii_spirk_tpu --dim {dim} {inputs}
 """
 
@@ -54,8 +56,8 @@ def main() -> None:
             TEMPLATE_CPU.format(n=n, dim=args.dim, inputs=joined),
         )
     emit(
-        os.path.join(args.sweep_dir, "run_tpu.sh"),
-        TEMPLATE_TPU.format(dim=args.dim, inputs=joined),
+        os.path.join(args.sweep_dir, "run_gpu.sh"),
+        TEMPLATE_GPU.format(dim=args.dim, inputs=joined),
     )
 
 

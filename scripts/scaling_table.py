@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Record the reference's scaling axes on virtual CPU device meshes.
 
-TPU-world execution of the reference's strong/weak-scaling studies
-(reference ``scripts/small_scaling.py:27-40`` — MaxRanks ladder over
-{irk, spirk} — and ``large_scaling.py:36-46`` — weak scaling over
-q in {2, 4, 9}): one real chip cannot vary device counts, so each row
-runs in a child process with an n-device virtual CPU backend (the same
+Execution of the reference's strong/weak-scaling studies (reference
+``scripts/small_scaling.py:27-40`` — MaxRanks ladder over {irk, spirk} —
+and ``large_scaling.py:36-46`` — weak scaling over q in {2, 4, 9}) as a
+correctness table: each row runs in a child process with an n-device
+virtual CPU backend (the same
 mechanism as the driver's ``dryrun_multichip``), and the table records
 what the reference's studies measure at the scaling limit as their
 *correctness* axis: L2 error and outer/inner iteration counts, which
@@ -57,7 +57,6 @@ def child(cfg_json: str, dim: int) -> None:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    os.environ.setdefault("SPIRK_PALLAS_INTERPRET", "1")
 
     from dealii_spirk_tpu.config import Parameters
     from dealii_spirk_tpu.runner import run_config

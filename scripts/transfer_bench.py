@@ -1,11 +1,12 @@
-"""Microbench: grid-transfer formulations on TPU (layout-copy hunt).
+"""Microbench: grid-transfer formulations on the GPU (layout-copy hunt).
 
 Times prolong+restrict round trips at the bench's fine level
 (stage-batched, (4, 63^3) -> (4, 127^3) -> (4, 63^3)) for three
 formulations of the per-axis dense apply:
 
-  v0  moveaxis -> matmul(u, P^T) -> moveaxis   (current apply_dense_1d)
+  v0  moveaxis -> matmul(u, P^T) -> moveaxis
   v1  dot_general contracting the axis directly, moveaxis(0, axis)
+      (the current ``ops/banded.py::apply_dense_1d``)
   v2  cycle: always contract the last axis, rotate spatial axes
 
 Not part of the test suite — a perf-engineering tool.

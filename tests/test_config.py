@@ -67,6 +67,20 @@ def test_invalid_scheme_rejected():
         Parameters.from_dict({"TimeIntegrationScheme": "rk4"})
 
 
+def test_pallas_operator_mode_rejected():
+    """The fused Pallas kernels are gone; asking for them is an error,
+    not a silent fallback."""
+    with pytest.raises(ValueError, match="OperatorMode 'pallas'"):
+        Parameters.from_dict({"OperatorMode": "pallas"})
+    for mode, expect in (("", "stencil"), ("stencil", "stencil"),
+                         ("dense", "dense")):
+        p = Parameters.from_dict(
+            {"OperatorType": "MatrixFree", "OperatorMode": mode,
+             "Precision": "f32"}
+        )
+        assert p.operator_mode == expect
+
+
 def test_stage_axis_sizes():
     assert (
         Parameters.from_dict(
